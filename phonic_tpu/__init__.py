@@ -1,4 +1,4 @@
-"""phonic_tpu — a TPU-native batched audio rendering engine in JAX.
+"""phonic_tpu — a batched audio rendering engine in JAX.
 
 A ground-up rebuild of the capabilities of emuell/phonic (a Rust real-time
 audio playback + DSP library) designed for XLA: render graphs compile to

@@ -2,7 +2,7 @@
 
 The reference engine (emuell/phonic) processes audio in pull-model blocks of at
 most 8192 samples (reference: src/source/mixed.rs:216) and offline-renders in
-1024-frame chunks (reference: src/output/wav.rs:25).  On TPU we instead render
+1024-frame chunks (reference: src/output/wav.rs:25).  Here we instead render
 in large fixed-size blocks scanned by the host (or by ``lax.scan`` for fully
 offline renders): per-sample control is lowered to analytic parameter ramps so
 block size only trades latency against throughput, not correctness.
@@ -49,7 +49,7 @@ class EngineConfig:
     # render homogeneous FileSources as vmapped lane banks (graph/batching.py)
     batch_sources: bool = True
     # vmap sibling mixers' identical effect chains into one batched run (the
-    # TPU analog of the reference's sub-mixer thread pool; see
+    # analog of the reference's sub-mixer thread pool; see
     # Effect.batch_key).  Disabled automatically when auto_bypass is on
     # (a lax.cond under vmap runs both branches).
     batch_effects: bool = True

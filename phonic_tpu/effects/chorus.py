@@ -7,7 +7,7 @@ pre-filter on the input, dry/wet output mix (:311-385).  Modulation range is
 256 samples scaled by sample rate (:330-333); read position =
 2 + delay + (1 + lfo) * depth_samples.
 
-TPU formulation: the input SVF runs as one parallel scan over the whole
+Formulation: the input SVF runs as one parallel scan over the whole
 block (it is outside the feedback loop); the feedback loop itself is a
 sub-block scan whose body is only a fractional ring read + contiguous write
 (see ops/ring.py).  Runtime read positions are clamped to >= B+1 samples;

@@ -6,7 +6,7 @@ to limiter mode (slope 1, detector = peak over the whole lookahead window,
 attack/release envelope follower; exponentially-smoothed makeup gain;
 output = lookahead-delayed signal * gain.  Tail: lookahead + release.
 
-TPU formulation: the lookahead delay is a static shift (carried [2, D]
+Formulation: the lookahead delay is a static shift (carried [2, D]
 tail); the limiter detector's "peak over the delay buffer" is an exact
 sliding-window maximum via ``lax.reduce_window``; only the envelope
 follower runs as a sequential scan (scalar state).  The lookahead TIME is
@@ -42,7 +42,7 @@ DEFAULT_LIMITER_THRESHOLD = -0.01
 def _sliding_window_max(x, w: int):
     """Exact sliding-window maximum (van Herk / Gil-Werman): two cummax
     passes instead of ``lax.reduce_window`` (whose stride-1 lowering is
-    pathologically slow to compile on TPU for windows this wide).
+    slow to compile for windows this wide).
 
     Returns y with y[k] = max(x[k .. k+w-1]) for k in [0, len(x) - w].
     """

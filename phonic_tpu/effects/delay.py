@@ -7,7 +7,7 @@ SVF filter -> tanh-approx saturation -> DC blocker -> clamp(+-4)
 filter cutoff (:340-380); equal-power-ish dry/wet law and mid/side stereo
 width on the output (:440-452); analytic tail from the feedback factor.
 
-TPU formulation (see ops/ring.py): N-frame blocks run as a scan over
+Formulation (see ops/ring.py): N-frame blocks run as a scan over
 sub-blocks of B samples (B chosen from the smallest reachable delay); inside
 a sub-block everything is vectorised — fractional ring reads, the SVF as a
 mini parallel scan with per-sample modulated coefficients, elementwise
@@ -258,7 +258,7 @@ class DelayEffect(Effect):
             fb_j = sl(feedback)
             drive_j = sl(drive)
             # grouped slab read: whole-window one-hots cost W-proportional
-            # MXU time (~10 ms/block on a 1 s line); the slab height is
+            # matmul time; the slab height is
             # the spring+LFO slew bound (_slab_rows)
             delayed = chrono_ops.read_frac_win_grouped(
                 rw, d_j, self._slab_rows(ctx))  # [2, B]

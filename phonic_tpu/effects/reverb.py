@@ -9,15 +9,13 @@ Householder-like 4-groups -> mean -> lowpass B (Q 0.618) -> clamp -> asin()
 blend/regen/cutoff derive from it (:408-420); two parameters only
 (ROOM_SIZE, WET).
 
-TPU formulation: the three lowpass biquads run as whole-block parallel
+Formulation: the three lowpass biquads run as whole-block parallel
 scans; the four allpasses chain inside one sub-block feedback scan (w[n] =
 x[n] - 0.5*w[n-d]); the 8 FDN lines batch into one sub-block scan.  All
 delay-line storage uses an ABSOLUTE-TIME block buffer (history ++ this
 block's writes), so writes are one contiguous dynamic_update_slice per
 step and reads are contiguous dynamic_slice windows — no modulo rings, no
-per-element gathers or scatters (which execute at scalar rate on this
-backend, round-4 profiling: the gathered FDN was ~90 ms/131072-frame
-block; this formulation is a few ms).  The fractional vibrato read
+per-element gathers or scatters.  The fractional vibrato read
 resolves through a 15-way shift-select over the window (offset range is
 [0, 2*VIB_DEPTH]), which picks the exact same f32 values a gather would.
 
@@ -30,7 +28,7 @@ Deliberate deviations from the reference:
   * line delays follow room-size automation at block rate, not sample rate
     (integer delay-size jumps are stepwise in the reference too);
   * the denormal-guard noise injection (|x| < 1.18e-23, reverb.rs:95-103)
-    is dropped — TPUs flush denormals;
+    is dropped — XLA flushes float32 denormals to zero;
   * vibrato phases are seeded deterministically (reference: OS random).
 """
 

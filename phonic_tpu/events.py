@@ -2,7 +2,7 @@
 
 The reference delivers control changes through lock-free queues drained at
 block boundaries, then splits the render block at event sample times
-(src/source/mixed.rs:659-719).  The TPU engine instead *lowers* each
+(src/source/mixed.rs:659-719).  This engine instead *lowers* each
 parameter's scheduled events into fixed-shape per-block segment tensors
 (`SegmentEvents`: times[K] + values[K] + ramps[K]) consumed by the
 closed-form smoothers in ops/smoothing.py — sample-accurate automation with

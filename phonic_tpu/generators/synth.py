@@ -6,7 +6,7 @@ pan) shared vars; note events allocate voices with the sampler's steal
 policy; frequency glides morph exponentially between notes
 (src/generator/fundsp/voice.rs:312-346, GlideState :538-560).
 
-TPU formulation: the same host-side allocator as the Sampler lowers notes to
+Formulation: the same host-side allocator as the Sampler lowers notes to
 per-voice lane descriptors; the SynthDef renders under vmap with per-sample
 gate/freq arrays.  Glides are exact exponential-in-pitch trajectories
 computed analytically from the note ages.

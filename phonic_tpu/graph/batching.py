@@ -15,22 +15,16 @@ bit-equal output against the unbatched path.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..ops import rampread as rr
 from ..ops import resample as rs
 from ..ops.convert import panning_factors
 from ..ops.precision import ds_add
 from ..sources.file import NEVER, FileSource, _host_fade_log1m
-
-# ramp-read chunk: grid-step count vs per-step DMA window trade
-# (ops/rampread.py; scripts/probe_rrp.py picks this)
-RR_CHUNK = 1024
 
 
 def group_key(src: FileSource, ctx):
@@ -97,35 +91,22 @@ class FileBatch:
              else 0.0 for s in sources], np.float32)
         self.sinc = None
         self.buffers_mm = None
-        self.buffers_rr = None
         if self.quality == "high":
             # per-source sinc tables share one (conservative) cutoff
             max_r = max(float(r * s.options.speed) for r, s in zip(self.ratio, sources))
             self.sinc = rs.sinc_table(cutoff=min(1.0, 1.0 / max(max_r, 1.0)))
             self.mode = "sinc"
-        elif rr._on_tpu():
-            # fused Pallas ramp-read (ops/rampread.py): windows DMA'd
-            # HBM->VMEM per chunk, tap selection via in-register one-hot
-            # dots — cost independent of buffer length, ~MXU rate.  Packed
-            # generously so any speed bucket's band window fits.
-            self.buffers_rr = rr.pack(
-                bufs, min_rows=rr.window_rows(RR_CHUNK, 64))
-            self.mode = "rr"
         elif rs.use_mm2(fmax + 1):
-            # MXU one-hot packing: per-element gathers run at scalar rate on
-            # this backend (~25 ms/source/131072-block); the two-stage
-            # hermite_read_mm2 is ~an order of magnitude cheaper and its
-            # stage-2 cost is independent of buffer length (ops/resample.py)
+            # one-hot two-stage read (ops/resample.py); its stage-2 cost is
+            # independent of buffer length
             self.buffers_mm = rs.mm_pack(bufs)
             self.mode = "mm2"
-        else:  # long buffers off-TPU: the plain gather wins
+        else:  # long buffers: the plain gather wins
             self.mode = "gather"
 
     def init_state(self):
         s = len(self.sources)
-        if self.mode == "rr":
-            buf = jnp.asarray(self.buffers_rr)
-        elif self.mode == "mm2":
+        if self.mode == "mm2":
             buf = jnp.asarray(self.buffers_mm)
         else:
             buf = jnp.asarray(self.buffers)
@@ -135,9 +116,8 @@ class FileBatch:
             "frac_lo": jnp.zeros((s,), jnp.float32),
             "buf": buf,
         }
-        # per-lane metadata and the sinc table ride in the state pytree:
-        # embedded jaxpr constants are re-staged to the device per execution
-        # on some backends (CLAUDE.md)
+        # per-lane metadata and the sinc table ride in the state pytree as
+        # jit arguments, so they stay out of the compiled program as constants
         st["meta"] = {
             "frames": jnp.asarray(self.frames),
             "repeat": jnp.asarray(self.repeat),
@@ -200,7 +180,7 @@ class FileBatch:
         # _spd_tag inputs, see FileSource.lower_block_inputs)
         smax = 2.0 ** max(s._speed_bucket(ctx.sample_rate)
                           for s in self.sources)
-        clamp_steps = self.mode in ("rr", "mm2")
+        clamp_steps = self.mode == "mm2"
 
         def lane_pos(base_s, frac_s, lo_s, frames, rpt, lstart, lend, ratio,
                      start_time, spd, kill, sflag, spos):
@@ -245,20 +225,15 @@ class FileBatch:
         )
 
         # read step ([S, ch_in, n]), switched per group mode.  Folded
-        # positions step by <= smax with mod-fold jumps — the rr/mm2
+        # positions step by <= smax with mod-fold jumps — the mm2
         # two-band contract (loops/pingpong/wraps exact).
-        if self.mode == "rr":
-            smax_i = max(1, int(math.ceil(smax)))
-            smap = jnp.arange(len(self.sources), dtype=jnp.int32)
-            audio = rr.ramp_read(state["buf"], smap, pos, smax_i,
-                                 chunk=RR_CHUNK)
-        elif self.mode == "sinc":
+        if self.mode == "sinc":
             audio = jax.vmap(lambda b, p: rs.sinc_read(b, p, sinc_tbl))(
                 state["buf"], pos)
         elif self.mode == "mm2":
             audio = jax.vmap(lambda b, p: rs.hermite_read_mm2(
                 b, p, smax=smax))(state["buf"], pos)
-        else:  # long-buffer group off-TPU: planar gather
+        else:  # long-buffer group: planar gather
             audio = jax.vmap(rs.hermite_read)(state["buf"], pos)
 
         def lane_post(audio, mask, fi_log1m, fo_log1m, start_time, vol, pan,
@@ -310,14 +285,13 @@ class LeafBatch:
     """Cross-node leaf batching: homogeneous (same ``source_batch_key``)
     Samplers / SynthSources / StreamedFileSources render as ONE vmapped call
     over stacked per-node states + parameter rows, instead of G separate
-    renders (SURVEY §7.4 / round-3 TODO).
+    renders (SURVEY §7.4).
 
     Per-lane STATIC config that may differ inside a group (start times,
     synth frequencies, buffer lengths) is declared by the node's
     ``source_batch_statics(ctx)`` and rides in the STATE pytree under
-    ``_statics`` — a jit argument, never a closure constant (CLAUDE.md:
-    constants are re-staged per execution on this backend; this is the same
-    rule that moved FileBatch's metadata into state).  State stacking goes
+    ``_statics`` — a jit argument, never a closure constant (the same rule
+    that keeps FileBatch's metadata in state).  State stacking goes
     through the node class's optional ``batch_pad_states`` hook (the
     Sampler zero-pads buffers to the group's longest, with the live length
     traced as `_buf_frames`).  The DSP is the node's ``process`` verbatim —

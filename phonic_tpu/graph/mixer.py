@@ -3,7 +3,7 @@
 Behavioural spec: reference src/source/mixed.rs — a mixer node sums playing
 sources and child mixers, then runs an ordered effect chain.  The reference
 parallelises sub-mixers over an RT thread pool
-(src/source/mixed/submixer/thread_pool.rs); in the TPU engine the whole tree
+(src/source/mixed/submixer/thread_pool.rs); in this engine the whole tree
 compiles into one XLA program, so sub-mixer "parallelism" is just more lanes
 in the fused computation — there is nothing to schedule.
 """

@@ -1,8 +1,8 @@
 """Render-graph node protocol.
 
 The reference is a pull-model interpreter: `Source::write` / `Effect::process`
-virtual calls per block (src/source.rs:80-110, src/effect.rs:86-215).  The
-TPU engine inverts this: every node is a *compiler object* — static Python
+virtual calls per block (src/source.rs:80-110, src/effect.rs:86-215).  This
+engine inverts this: every node is a *compiler object* — static Python
 config plus two pure functions over pytrees — and the graph engine traces all
 of them into ONE jitted block-render program (see graph/engine.py).
 
@@ -101,7 +101,7 @@ class Effect(Node):
         must cover every static attribute ``process`` reads — runtime
         parameters may differ per lane).  The engine batches sibling mixers
         whose effect chains have pairwise-equal key tuples into one vmapped
-        chain (the TPU analog of the reference's sub-mixer thread pool,
+        chain (the analog of the reference's sub-mixer thread pool,
         src/source/mixed/submixer/thread_pool.rs:278-334)."""
         return None
 

@@ -3,7 +3,7 @@
 Behavioural spec: reference src/source/file/streamed.rs:522-567 — a decoder
 thread incrementally feeds a 128 Ki-sample ring so arbitrarily long files
 play with bounded host memory — and src/source/file/decoder.rs (packet
-loop + seek).  The TPU formulation replaces the thread+ring with a chunked
+loop + seek).  This formulation replaces the thread+ring with a chunked
 random-access reader: `read(start, count)` decodes only the frames a render
 block's window needs, and `CachedReader` keeps a bounded LRU of decoded
 chunks so loop playback does not re-decode every pass.  Total resident

@@ -2,7 +2,7 @@
 
 Behavioural spec: reference src/source/file/decoder.rs — phonic itself does
 not implement MPEG audio; it delegates to the symphonia crate
-(Cargo.toml:46-56).  The TPU-native analog delegates to the host's mpg123
+(Cargo.toml:46-56).  This package delegates to the host's mpg123
 decoder library the same way the realtime output dlopens ALSA
 (native/ringbuf.cpp): a ctypes binding with no Python package dependency.
 When no libmpg123 is present the loader raises UnsupportedFormatError so

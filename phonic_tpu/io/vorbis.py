@@ -1,7 +1,7 @@
 """Ogg/Vorbis decode via the system's libvorbisfile (ctypes, no pip dep).
 
 Behavioural spec: reference src/source/file/decoder.rs — phonic delegates
-Vorbis to symphonia (Cargo.toml:46-56); the TPU-native analog delegates to
+Vorbis to symphonia (Cargo.toml:46-56); this package delegates to
 the host's vorbisfile library (see io/mp3.py for the pattern and rationale).
 
 Output: planar float32 [channels, frames] straight from ov_read_float — no

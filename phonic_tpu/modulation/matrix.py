@@ -7,7 +7,7 @@ transforms (src/modulation/matrix.rs:196-246): bipolar->unipolar maps
 (v+1)/2, unipolar->bipolar maps (v-0.5)*2, matching polarities pass through;
 each routing scales by its amount.
 
-TPU formulation: routings live in a dense ``amounts[S, T]`` +
+Formulation: routings live in a dense ``amounts[S, T]`` +
 ``bipolar[S, T]`` pair delivered as per-block inputs, so add/clear/update
 modulation at runtime never recompiles.  LFO phases are analytic functions
 of the note age (they restart at note-on), so the matrix carries no device

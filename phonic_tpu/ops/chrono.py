@@ -4,22 +4,18 @@ Behavioural spec: reference src/utils/dsp/delay.rs (InterpolatedDelayLine:
 fractional linear-interp reads at ``write_pos - delay``).
 
 This replaces the modulo-ring machinery (ops/ring.py) on the hot path: ring
-reads are per-element gathers, which execute at scalar rate on this TPU
-(~7.6 ns/element — a [2, 131072] 2-tap read costs ~4 ms and multiplies
-linearly under lane vmap).  Here the delay line is stored as an
+reads are per-element gathers.  Here the delay line is stored as an
 ABSOLUTE-TIME buffer: ``big = history ++ this block's writes``.  Per
 sub-block step the write is one contiguous ``dynamic_update_slice`` and the
 read resolves inside one contiguous window ``big[:, t0 : t0 + H + B]``
-through one-hot row matmuls on the MXU (one-hot matmuls at
-``Precision.HIGHEST`` reproduce the gathered f32 values exactly; the lerp
-uses the same ``v1 + (v2 - v1) * frac`` expression as ring_read_frac).
-Lower dot precisions are NOT exact on this relay even with a {0,1}
-one-hot operand — Precision.HIGH measured 2.4e-5 abs error on unit-scale
-data (probe_r5f), i.e. the backend's bf16x3 scheme truncates the DATA
-side — and did not measurably help the delay block anyway.
+through one-hot row matmuls (one-hot matmuls at ``Precision.HIGHEST``
+reproduce the gathered f32 values exactly; the lerp uses the same
+``v1 + (v2 - v1) * frac`` expression as ring_read_frac).  Lower dot
+precisions (TF32, bf16 passes) truncate the DATA side even with a {0,1}
+one-hot operand, so every matmul here asks for HIGHEST.
 
 float64 strict-parity renders use the same chronological layout with a
-plain take-based read (MXU is f32; the gather cost is acceptable there).
+plain take-based read.
 
 Layout invariants:
   * history length H is a static multiple of 128, H >= max read offset + 2
@@ -118,8 +114,8 @@ def read_frac(big, H: int, t0, offsets):
 
     def mm(oh_hi, oh_lo, w2):
         # [B, rows-1] one-hots select row hi and hi+1; the 1.0 entries make
-        # the matmul an exact f32 copy at Precision.HIGHEST (HIGH is NOT
-        # exact on this backend — see module docstring)
+        # the matmul an exact f32 copy at Precision.HIGHEST (lower
+        # precisions are not exact — see module docstring)
         oh = (oh_hi[:, None] == rr[None, :]).astype(w2.dtype)
         w0 = jnp.matmul(oh, w2[:-1], precision=jax.lax.Precision.HIGHEST)
         w1 = jnp.matmul(oh, w2[1:], precision=jax.lax.Precision.HIGHEST)
@@ -147,7 +143,7 @@ def read_frac_win(win, offsets):
     feedback effects' block cost.  Output sample j reads window-relative
     position W + j - offsets[..., j]; offsets must satisfy
     B + 1 <= offs <= W - 2 (the same clamp as read_frac).  W must be a
-    multiple of 128 for the MXU path."""
+    multiple of 128 for the one-hot path."""
     ch, W = win.shape
     per_channel = jnp.asarray(offsets).ndim == 2
     b = jnp.asarray(offsets).shape[-1]
@@ -206,8 +202,7 @@ def read_frac_win_grouped(win, offsets, slab_rows: int):
     """:func:`read_frac_win` with per-128-output-group dynamic row slabs.
 
     The plain window read builds a [B, W/128] one-hot and matmuls it
-    against the WHOLE window — W-proportional MACs per step (a 1 s delay
-    line at 131072-frame blocks spends ~10 ms/block there).  Read
+    against the WHOLE window — W-proportional MACs per step.  Read
     positions are ramps (|Δrel| <= 1 + |Δoffset|), so each 128-output
     group touches a narrow row band: slice ``slab_rows`` rows around the
     group's minimum row (dynamic_slice — cheap) and select within the

@@ -17,7 +17,7 @@ which is linear in the state (ic1, ic2):
 
 so a whole block is evaluated with one parallel associative scan
 (ops/scan.linear_recurrence_2), including *per-sample time-varying
-coefficients* — the TPU answer to the reference recomputing coefficients
+coefficients* — the answer to the reference recomputing coefficients
 every frame while a cutoff ramp is active (src/effect/filter.rs:160-196).
 v1/v2 are recovered from consecutive states: v = (s[n] + s[n-1]) / 2.
 

@@ -5,11 +5,11 @@ Behavioural spec:
     3rd-order Hermite x-form (Niemitalo, deip.pdf p. 43, :121-142)
   - high quality: reference src/utils/resampler/rubato.rs — bandlimited sinc
     via the rubato crate; reimplemented here as a polyphase Kaiser-windowed
-    sinc FIR (a gather + small dot product, MXU/VPU friendly)
+    sinc FIR (a gather + small dot product)
 
 Design difference from the reference (intentional): the reference streams
 through stateful per-channel interpolators with push/consume bookkeeping; on
-TPU every output sample's source position is computed *analytically*
+an accelerator every output sample's source position is computed *analytically*
 (`pos[j] = pos0 + cumsum(step)`), so an arbitrarily speed-glided, looped read
 becomes one vectorised gather + polynomial per block.  The reference's two
 stream branches differ by a one-sample latency quirk
@@ -70,17 +70,15 @@ def catmull_rom_read(buf, positions, fill=0.0):
 
 
 # ---------------------------------------------------------------------------
-# Gather-free Hermite read: one-hot matmuls on the MXU
+# Gather-free Hermite read: one-hot matmuls
 # ---------------------------------------------------------------------------
 #
-# Per-element gathers (jnp.take over computed indices) execute at scalar
-# rate on this TPU backend (~70 ns/element: a 131072-position Hermite read
-# costs ~9 ms, and 16 vmapped sources ~400 ms/block).  The MXU formulation
-# replaces the gather with two one-hot row-matmuls: the buffer is packed
+# The one-hot formulation replaces the gather (jnp.take over computed
+# indices) with two one-hot row-matmuls: the buffer is packed
 # into [R, 128, ch] rows; for each output chunk a [C, R-1] one-hot selects
 # rows hi and hi+1 (two matmuls against consecutive row views), giving a
 # [C, 256, ch] window that contains all four Hermite taps; the taps are
-# then combined with a masked per-tap weight matrix on the VPU.  One-hot
+# then combined with a masked per-tap weight matrix.  One-hot
 # matmuls at Precision.HIGHEST are EXACT in f32 (1.0 * x with bf16x3
 # decomposition reconstructs x bit-exactly; 0.0 terms stay 0), so the only
 # deviation from `hermite_read` is the tap-combination rounding order
@@ -91,18 +89,16 @@ MM_PAD_LEFT = 4  # zero frames packed before sample 0 (covers taps of pos>=-4)
 # Rows are packed at stride MM_STRIDE < 128 so they OVERLAP by 4 samples:
 # all four Hermite taps of any position then live inside ONE row, which
 # halves the matmul bill (one row-select instead of the r/r+1 pair) and
-# shrinks the tap-combination epilogue from a 256-wide to a 128-wide pass
-# (measured 123 -> 51 ms at the 256-lane engine shape, bit-exact —
-# scripts/probe_mmread4.py).
+# shrinks the tap-combination epilogue from a 256-wide to a 128-wide pass.
 MM_STRIDE = 124
 
 # The per-chunk one-hot is a materialized [chunk, R] f32 matrix and the
 # row-matmul is linear in R, while the gather it replaces is O(n) in
 # positions and independent of buffer length — so above a row threshold the
 # matmul loses (and its transients grow unboundedly: R~62k for a 3-minute
-# 44.1 kHz file would mean ~0.5 GB per 2048-chunk).  Break-even from the
-# measured costs on this backend (gather ~9 ms / 131072 positions;
-# mm ~1 ms at R=376): R ~ 3000.
+# 44.1 kHz file would mean ~0.5 GB per 2048-chunk).  The row cap is a
+# break-even inherited from an earlier accelerator and has not been
+# re-derived for the GPU (see ROADMAP.md).
 MM_MAX_ROWS = 3072  # ~7.9 s of 48 kHz audio
 
 
@@ -112,7 +108,7 @@ def mm_rows(frames: int, pad_left: int = MM_PAD_LEFT) -> int:
 
 
 def use_mm(frames: int) -> bool:
-    """Whether the gather-free MXU read pays off for this buffer length
+    """Whether the gather-free one-hot read is used for this buffer length
     (callers fall back to :func:`hermite_read` above the threshold)."""
     return mm_rows(frames) <= MM_MAX_ROWS
 
@@ -194,7 +190,7 @@ def hermite_read_mm(bufmm, positions, chunk: int = 2048,
         w = (jnp.where(o == 0, w_m1, 0.0) + jnp.where(o == 1, w_y0, 0.0)
              + jnp.where(o == 2, w_y1, 0.0) + jnp.where(o == 3, w_y2, 0.0))
         return jnp.sum(w[:, :, None] * win.reshape(c, 128, ch),
-                       axis=1)  # [C, ch] (VPU, exact f32)
+                       axis=1)  # [C, ch] (exact f32)
 
     outs = jax.lax.map(body, (kil.reshape(nc, c), frac.reshape(nc, c)))
     out = outs.reshape(npad, ch)[:n]
@@ -206,7 +202,7 @@ def hermite_read_mm(bufmm, positions, chunk: int = 2048,
 # Two-stage two-window one-hot read: the ramp-structured fast path
 # ---------------------------------------------------------------------------
 #
-# `hermite_read_mm` streams the WHOLE packed buffer through the MXU per
+# `hermite_read_mm` streams the WHOLE packed buffer through the matmul per
 # chunk (selection-by-matmul costs C x R x 128 MACs).  When consecutive
 # positions within a chunk step by at most `smax` samples, the chunk only
 # touches ~chunk*smax source samples, so the selection goes two-stage:
@@ -217,21 +213,18 @@ def hermite_read_mm(bufmm, positions, chunk: int = 2048,
 # Mod-fold jumps (loops, circular wraps, repeat folds) are EXACT: after a
 # fold jump positions land within chunk*smax of the fold interval's other
 # end, so a chunk's positions always occupy at most two bands — one inside
-# each window.  Measured on the target TPU the read is bound by the
-# 128-lane tap-select epilogue (~1 ns/position at batch), so the second
-# window is effectively free and this variant wins whenever R >> 2NR
-# (scripts/probe_tworead.py: R=216 51.8->35.3 ms, R=775 147.7->36.5 ms at
-# the 256-lane engine shape).
+# each window.  The read is bound by the 128-lane tap-select epilogue, so
+# the second window is nearly free and this variant beats hermite_read_mm
+# whenever R >> 2NR.
 
-# mm2's stage-1 cost is linear in R with a tiny constant (2NR row-selects);
-# it stays far ahead of the per-element gather up to minute-long buffers.
-# The practical cap is stage 1's HBM streaming of the packed buffer per
-# chunk: ~16k rows (~42 s @ 48 kHz) keeps it below the epilogue floor.
+# mm2's stage-1 cost is linear in R with a tiny constant (2NR row-selects).
+# The cap bounds stage 1's streaming of the packed buffer per chunk; like
+# MM_MAX_ROWS it is an inherited break-even, not one measured on the GPU.
 MM2_MAX_ROWS = 16384
 
 
 def use_mm2(frames: int) -> bool:
-    """Whether the two-stage MXU read pays off for this buffer length."""
+    """Whether the two-stage one-hot read is used for this buffer length."""
     return mm_rows(frames) <= MM2_MAX_ROWS
 
 

@@ -3,7 +3,7 @@
 Behavioural spec: reference src/utils/dsp/delay.rs (InterpolatedDelayLine —
 fractional linear-interp reads, power-of-two masked ring).
 
-The TPU problem with feedback delays: the written sample depends on earlier
+The problem with feedback delays: the written sample depends on earlier
 *outputs*, which is sequential.  But the dependency latency equals the delay
 length D — writes inside a span of B <= D-1 samples never feed their own
 reads.  So a block of N frames processes as a short ``lax.scan`` over N/B

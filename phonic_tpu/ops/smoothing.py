@@ -4,7 +4,7 @@ Behavioural spec: reference src/utils/smoothing.rs.
 
 The reference smooths parameters with per-sample stateful ramps
 (exponential ``c += (t-c)*inertia*comp``, linear fixed-step, critically-damped
-spring).  A per-sample loop would be poison on TPU, so each smoother here is
+spring).  A per-sample loop would serialize the block, so each smoother here is
 evaluated in closed form: scheduled events split a block into at most K+1
 segments; a tiny ``lax.scan`` over segments propagates the smoother state to
 each segment start, then the per-sample trajectory inside every segment is an
@@ -134,9 +134,7 @@ def exp_smoother_block(
     )
 
     # Per-sample evaluation as a sum of K statically-indexed segment terms:
-    # pure elementwise VPU work.  (searchsorted + per-sample gathers are
-    # pathologically slow on this TPU backend — measured ~7 ms per parameter
-    # per 131072-frame block, dominating whole-graph render time.)
+    # pure elementwise work, no searchsorted or per-sample gathers.
     idx = jnp.arange(n, dtype=jnp.float32)
     segs = seg_start.astype(jnp.float32)
     seg_end = jnp.concatenate(
@@ -366,9 +364,8 @@ def step_targets(current, events: SegmentEvents, ramps, n: int):
     (end_value, values[n]).
 
     Evaluated as a sum of K basis terms (step or clipped-lerp per event)
-    with statically-indexed coefficients: pure elementwise VPU work, no
-    gathers or searchsorted — per-voice automation stays nearly free on
-    TPU.  value[i] = current + sum_k d_k * g_k(i), with d_k the value delta
+    with statically-indexed coefficients: pure elementwise work, no
+    gathers or searchsorted — per-voice automation stays nearly free.  value[i] = current + sum_k d_k * g_k(i), with d_k the value delta
     at event k and g_k a unit step (jump) or clipped ramp."""
     t = events.times  # [K], pads hold block_len
     valid = t < n

@@ -1,8 +1,8 @@
 """Browser playback output: chunked WAV-over-HTTP streaming.
 
 Behavioural spec: reference src/output/web.rs — an emscripten/WebAudio
-backend that pulls rendered samples into a ScriptProcessorNode.  A TPU
-render farm has no wasm build to embed in, so the TPU-native analog inverts
+backend that pulls rendered samples into a ScriptProcessorNode.  A server-side
+render engine has no wasm build to embed in, so this output inverts
 the transport: the render pump PUSHES blocks into a bounded queue that a
 tiny stdlib HTTP server streams to any browser as one endless 32-bit-float
 WAV (`<audio src=...>` plays it natively; no client code needed).  The
@@ -38,7 +38,7 @@ _PAGE = """<!doctype html>
 
 # True WebAudio client (reference: src/output/web.rs:52-115 pulls rendered
 # samples into a ScriptProcessorNode and suspends/resumes on user gesture).
-# The TPU-native inversion keeps the DSP server-side; the browser runs an
+# The inversion keeps the DSP server-side; the browser runs an
 # AudioWorkletProcessor fed from a fetch-stream of raw float32 frames, with
 # ~2 s of client-side buffering as the pull pacing (reading pauses when
 # ahead, which backs up the bounded server queue and paces the render pump

@@ -7,7 +7,7 @@ Converted -> Amplified -> Panned (src/player.rs:540-559) — which is fused
 here into one node: resample+remap, smoothed volume, smoothed constant-power
 pan, fade-in/out.
 
-TPU formulation: playback is *positional*.  The source carries its frame
+Formulation: playback is *positional*.  The source carries its frame
 position as an exact (int32 base, float32 frac) pair; a block computes
 per-sample read positions analytically (cumsum of speed * rate_ratio), folds
 them through the loop/repeat map with integer arithmetic, and gathers with
@@ -189,14 +189,14 @@ class FileSource(Source):
         # position = base + frac + frac_lo; the (frac, frac_lo) pair is
         # compensated f32 so block-boundary rounding never accumulates.
         # The sample data rides in the state pytree (threaded unchanged):
-        # passing it as an argument keeps it device-resident, where a
-        # closure constant would be re-staged per execution on some backends.
+        # passing it as an argument keeps it device-resident and out of
+        # the compiled program.
         self._ctx_sr = ctx.sample_rate
         st = {
             "base": jnp.zeros((), jnp.int32),
             "frac": jnp.zeros((), jnp.float32),
             "frac_lo": jnp.zeros((), jnp.float32),
-            # mm-packed for the gather-free two-stage MXU read
+            # mm-packed for the gather-free two-stage one-hot read
             # (ops/resample.py hermite_read_mm2); the sinc path keeps the
             # planar layout for its windowed FIR, as do buffers long enough
             # that stage 1's HBM streaming loses to the gather (rs.use_mm2)

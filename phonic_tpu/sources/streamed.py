@@ -4,7 +4,7 @@ Behavioural spec: reference src/source/file/streamed.rs — a dedicated decoder
 thread feeds a 128 Ki-sample SPSC ring; the audio thread resamples from the
 ring with zero-padding at EOF; seek restarts the decoder.
 
-TPU formulation: the *host* is the decoder/feeder.  Per block it assembles a
+Formulation: the *host* is the decoder/feeder.  Per block it assembles a
 fixed-size window of the next W source frames **in playback order** (loop
 folding, repeats and seeks all applied host-side with cheap gathers) and
 ships it as a device input; the device reads the window with the same

@@ -5,7 +5,7 @@ Behavioural spec: reference src/source/synth.rs (SynthPlaybackOptions
 and status handling) and src/source/synth/fundsp.rs (FunDSP-unit-driven
 source that auto-exhausts after 2 s below -60 dB).
 
-The TPU analog of a FunDSP AudioUnit is a **SynthDef**: a pure-function
+The analog of a FunDSP AudioUnit is a **SynthDef**: a pure-function
 voice with an explicit state pytree:
 
     init(ctx)                                  -> state

@@ -2,7 +2,7 @@
 
 These are deliberately naive sample-by-sample loops written from the
 behavioural spec in SURVEY.md (reference file:line cited per function); the
-JAX/TPU implementations are validated against them within tight tolerances.
+JAX implementations are validated against them within tight tolerances.
 """
 
 from __future__ import annotations

@@ -67,29 +67,26 @@ def test_batched_loops_and_repeats():
     np.testing.assert_allclose(a, b, atol=2e-6)
 
 
-def _force_rr(prog):
-    """Flip every file batch to the Pallas ramp-read path; on CPU the
-    kernel runs in interpret mode, so this pins rr == mm2 end-to-end."""
-    from phonic_tpu.graph import batching
-    from phonic_tpu.ops import rampread as rr
+def _force_gather(prog):
+    """Flip every file batch to the plain planar gather read, so the
+    default one-hot mm2 read is pinned to it end-to-end."""
     assert prog.file_batches
     for fb in prog.file_batches.values():
-        fb.mode = "rr"
-        fb.buffers_rr = rr.pack(
-            fb.buffers, min_rows=rr.window_rows(batching.RR_CHUNK, 64))
+        assert fb.mode == "mm2"
+        fb.mode = "gather"
     return prog
 
 
-def test_batched_rr_read_matches_mm2():
+def test_batched_gather_read_matches_mm2():
     pa, sa = build(True, seed=1)
     pb, _ = build(True, seed=1)
-    _force_rr(pb)
+    _force_gather(pb)
     a = pa.render(duration_frames=6144)
     b = pb.render(duration_frames=6144)
     np.testing.assert_allclose(a, b, atol=2e-6)
 
 
-def test_batched_rr_read_loops():
+def test_batched_gather_read_loops():
     def make(batch, force):
         main = Mixer("main")
         for i in range(3):
@@ -102,7 +99,7 @@ def test_batched_rr_read_loops():
         cfg = EngineConfig(sample_rate=SR, block_frames=1024,
                            batch_sources=batch)
         prog = RenderProgram(main, cfg)
-        return _force_rr(prog) if force else prog
+        return _force_gather(prog) if force else prog
     a = make(True, True).render(duration_frames=4096)
     b = make(True, False).render(duration_frames=4096)
     np.testing.assert_allclose(a, b, atol=2e-6)

@@ -3,7 +3,7 @@ sizes must agree within a documented bound.
 
 The engine's math is block-size independent by construction (closed-form
 smoothers, analytic envelopes, sub-block feedback decomposition), but f32
-scan reassociation drifts ~-70 dB in the worst feedback chains (TODO.md).
+scan reassociation drifts ~-70 dB in the worst feedback chains (PARITY.md §2.9).
 This quantifies that seam per effect family and pins the bound so a
 regression (a genuinely block-dependent code path) fails loudly.  The f64
 strict-parity mode must agree to near round-off."""
@@ -48,7 +48,7 @@ def err_db(a, b):
     return 20.0 * np.log10(max(np.max(np.abs(a - b)) / ref, 1e-30))
 
 
-# documented bounds (f32 scan reassociation; see TODO.md / PARITY.md §2.9)
+# documented bounds (f32 scan reassociation; see PARITY.md §2.9)
 CASES = [
     ("stateless", lambda: [Eq5Effect(gains=[3, -2, 1, -4, 2])], -80.0),
     ("compressor", lambda: [CompressorEffect(threshold=-18.0, ratio=4.0)], -60.0),

@@ -2,7 +2,7 @@
 src/player/handles/file.rs:150-176 + src/source/file/common.rs:141-163).
 
 The reference ramps speed toward the target at `rate` semitones/second,
-recomputing a linear step every 64 frames.  The TPU lowering replays that
+recomputing a linear step every 64 frames.  The engine's lowering replays that
 recurrence on the host and emits piecewise-linear ramp knots on a 512-frame
 grid, so knot values match the reference staircase exactly and the in-block
 evaluation stays a vectorized gather.

@@ -131,7 +131,7 @@ def test_hermite_read_matches_oracle():
 @pytest.mark.parametrize("channels", [1, 2])
 @pytest.mark.parametrize("frames", [127, 256, 391])
 def test_hermite_read_mm_matches_hermite_read(channels, frames):
-    """The gather-free MXU formulation must agree with the gather path for
+    """The gather-free one-hot formulation must agree with the gather path for
     odd lengths, out-of-range positions (negative / past-end), and both
     channel layouts (ADVICE r3: all three playback paths depend on it)."""
     rng = np.random.default_rng(7)

@@ -44,6 +44,19 @@ def test_mixdown_collective():
     np.testing.assert_allclose(np.asarray(audio[0]), 8.0 * single, atol=1e-4)
 
 
+@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.parametrize("mixdown", [False, True])
+def test_sharded_lanes_stay_on_their_device(mixdown):
+    # each device renders its own lanes: no all-gather, and the only
+    # collective is the mixdown's all-reduce
+    batched = BatchedRenderProgram(make_prog(), lanes=8, mesh=data_mesh(8),
+                                   mixdown=mixdown)
+    hlo = batched.step.lower(batched.init_states(),
+                             batched.block_inputs(0)).compile().as_text()
+    assert "all-gather" not in hlo
+    assert ("all-reduce" in hlo) == mixdown
+
+
 def make_wide_prog(n_sources=8, n_subs=4, block=1024):
     """Flagship-shaped graph: batched file lanes + batched sibling effect
     chains — the internal axes GraphShardedProgram partitions."""

@@ -156,14 +156,14 @@ def test_no_envelope_one_shot():
     assert np.max(np.abs(out[:, :4000])) > 0.1
 
 
-def test_rr_read_matches_default(monkeypatch):
-    """The Pallas ramp-read voice path (interpret mode on CPU) must match
-    the mm2/gather read path through a full multi-note render, including
-    a loop range and pitched notes (read-window fold contract)."""
+def test_mm2_read_matches_gather(monkeypatch):
+    """The one-hot mm2 voice read must match the plain gather read through
+    a full multi-note render, including a loop range and pitched notes
+    (read-window fold contract)."""
     import phonic_tpu.generators.sampler as smod
 
-    def build(force):
-        monkeypatch.setattr(smod, "_FORCE_RR", force)
+    def build(mm2):
+        monkeypatch.setattr(smod.rs, "use_mm2", lambda frames: mm2)
         buf = tone_buffer(frames=9000)
         s = Sampler(buf, GeneratorPlaybackOptions(voices=3),
                     envelope=AhdsrConfig(attack=0.005, release=0.05))
@@ -177,6 +177,6 @@ def test_rr_read_matches_default(monkeypatch):
         prog = make_prog(s)
         return prog.render(duration_frames=8192)
 
-    a = build(False)
-    b = build(True)
+    a = build(True)
+    b = build(False)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=3e-6)
